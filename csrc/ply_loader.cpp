@@ -8,7 +8,7 @@
 // the file and fans the activation loop across hardware threads, and keeps
 // the f_rest spherical-harmonic block instead of discarding it.
 //
-// C ABI consumed by openglgaussiansplattingrenderer_tpu/io/native.py via
+// C ABI consumed by openglgaussiansplattingrenderer_jax/io/native.py via
 // ctypes. Two-phase protocol: gs_open parses the header (returning counts so
 // Python can allocate numpy arrays), gs_read fills + activates, gs_close
 // unmaps.

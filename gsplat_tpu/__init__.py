@@ -1,7 +1,5 @@
-"""Short import alias for openglgaussiansplattingrenderer_tpu."""
+"""Former name of the ``gsplat_jax`` short alias."""
 
-from openglgaussiansplattingrenderer_tpu import *  # noqa: F401,F403
-from openglgaussiansplattingrenderer_tpu import (  # noqa: F401
-    camera, config, golden, render, splats,
-)
-from openglgaussiansplattingrenderer_tpu import io, ops  # noqa: F401
+from openglgaussiansplattingrenderer_jax.utils.alias import install
+
+install(__name__, "gsplat_jax")

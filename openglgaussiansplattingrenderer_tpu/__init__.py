@@ -1,41 +1,6 @@
-"""TPU-native differentiable 3D Gaussian Splatting renderer.
+"""Former name of ``openglgaussiansplattingrenderer_jax``: importing it, or
+any of its submodules, returns that package's modules."""
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of
-``thomas-chernaik/OpenGLGaussianSplattingRenderer`` (C++17 + OpenGL 4.6 compute
-shaders), re-designed TPU-first:
+from openglgaussiansplattingrenderer_jax.utils.alias import install
 
-- PLY 3DGS scene loading with activation transforms (ref ``src/Splats.cpp:174-344``)
-- quaternion/scale -> 3D covariance (ref ``src/Splats.cpp:414-479``)
-- EWA screen-space projection to conics + frustum cull (ref ``shaders/preprocess.glsl``)
-- static-shape tile binning with splat duplication (ref ``shaders/preprocess.glsl:157-189``,
-  ``shaders/countBins.glsl``, ``shaders/prefixBins.glsl`` -- atomics replaced by
-  cumsum + gather, no per-frame host sync)
-- depth sort (ref ``src/sort.cpp`` + sort shaders -> ``jax.lax.sort`` / Pallas radix)
-- depth-ordered tile-parallel alpha compositing (ref ``shaders/draw.glsl`` ->
-  fused Pallas tile kernel with an analytic backward pass)
-- CPU golden pipeline for validation (ref ``src/Splats.cpp:599-1188``)
-- plus what the reference lacks: gradients to every splat parameter and
-  multi-chip sharding over a ``jax.sharding.Mesh``.
-"""
-
-from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-from openglgaussiansplattingrenderer_tpu.camera import Camera
-from openglgaussiansplattingrenderer_tpu.splats import SplatScene, Splats
-from openglgaussiansplattingrenderer_tpu.render import (
-    render,
-    render_depth,
-    render_stats,
-)
-
-__version__ = "0.1.0"
-
-__all__ = [
-    "RenderConfig",
-    "Camera",
-    "SplatScene",
-    "Splats",
-    "render",
-    "render_depth",
-    "render_stats",
-    "__version__",
-]
+install(__name__, "openglgaussiansplattingrenderer_jax")

@@ -1,133 +1,113 @@
-#!/usr/bin/env python
-"""Evaluate the BASELINE.md measurement configs on the available hardware.
+"""Three baseline checks of the renderer on the available device.
 
-Configs (BASELINE.md "targets to establish"):
-  1. testSingleItem.ply single Gaussian, 256x256, vs the CPU-reference
-     (golden) render path
-  2. synthetic 10k-splat scene, forward-only, 512x512
-  3. synthetic 100k splats, full fwd+bwd with a gradient check vs
-     directional finite differences, 1 chip
-  (4/5 need the bicycle capture and >=2 hosts -- not available here.)
+  1. The reference's single-Gaussian fixture (``testSingleItem.ply``'s
+     values, ``io.ply.single_splat_scene``) at 256x256 against the numpy
+     golden pipeline (``golden.py``), held to the reference's own CPU/GPU
+     tolerance of 1e-2.
+  2. A synthetic 10k-splat scene, forward only, 512x512: frame time.
+  3. A synthetic 100k-splat scene at 512x512: forward+backward time, and
+     the gradient of each parameter tensor against a central finite
+     difference along its own direction.
 
-Writes RESULTS.md and prints a summary.
+    python scripts/baseline_eval.py
+
+Every time ends in ``block_until_ready``. Prints one line per check and a
+JSON summary as the last line.
 """
 
+import json
+import os
 import sys
 import time
 
-sys.path.insert(0, __file__.rsplit("/", 2)[0])
-
-import functools
-
 import numpy as np
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-def fence(x):
+
+def timed_ms(fn, iters):
     import jax
 
-    return float(np.asarray(jax.tree.leaves(x)[0]).ravel()[0])
+    jax.block_until_ready(fn())
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn()
+    jax.block_until_ready(out)
+    return (time.perf_counter() - t0) / iters * 1000, out
 
 
 def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+    from openglgaussiansplattingrenderer_jax import golden, scenes
+    from openglgaussiansplattingrenderer_jax.camera import Camera
+    from openglgaussiansplattingrenderer_jax.config import RenderConfig
+    from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+    from openglgaussiansplattingrenderer_jax.ops.transforms import build_covariance
+    from openglgaussiansplattingrenderer_jax.render import camera_args, render_arrays
+    from openglgaussiansplattingrenderer_jax.utils.platform import enable_compile_cache
+
+    enable_compile_cache()
     dev = jax.devices()[0]
+    summary = {"device_kind": dev.device_kind, "platform": dev.platform}
 
-    from openglgaussiansplattingrenderer_tpu.camera import Camera
-    from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-    from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-    from openglgaussiansplattingrenderer_tpu import golden
-    from openglgaussiansplattingrenderer_tpu.ops.transforms import build_covariance
-    from openglgaussiansplattingrenderer_tpu.render import camera_args, render_arrays
+    def forward(params, cam, cfg, w, h):
+        c = scenes.camera_tuple(cam)
+        fwd = jax.jit(lambda p: render_arrays(p, *c, w, h, cfg))
+        ms, (img, stats) = timed_ms(lambda: fwd(params), 10)
+        return np.asarray(img), stats, ms
 
-    lines = [f"# RESULTS (round 1)\n\nDevice: `{dev}` ({dev.platform}). "
-             "BASELINE.md configs 1-3; 4/5 need the bicycle capture and "
-             "multi-host hardware (not available in this environment).\n"]
-
-    def run(params, cam, cfg, w, h):
-        a = camera_args(cam)
-
-        @jax.jit
-        def fwd(p):
-            img, stats = render_arrays(
-                p, jnp.asarray(a["view"]), jnp.asarray(a["vp"]), a["focal_x"],
-                a["focal_y"], a["tan_fovx"], a["tan_fovy"], w, h, cfg)
-            return img, stats
-
-        img, stats = fwd(params)
-        fence(img)
-        t0 = time.time()
-        for _ in range(10):
-            img, stats = fwd(params)
-        fence(img)
-        return np.asarray(img), stats, (time.time() - t0) / 10 * 1000, a
-
-    # ---- config 1: single splat vs golden --------------------------------
+    # ---- 1: single splat vs golden --------------------------------------
     scene = ply_io.single_splat_scene()
-    try:
-        ref = ply_io.activate(ply_io.load_ply("/root/reference/testSingleItem.ply"))
-        scene = {**scene, **{k: ref[k] for k in
-                             ("means", "scales", "quats", "opacities", "colors")}}
-        src = "reference testSingleItem.ply"
-    except Exception:
-        src = "built-in fixture"
     cam = Camera(0.0, 0.0, -3.0, width=256, height=256)
-    cfg1 = RenderConfig(use_pallas=True, chunk=256, dup_capacity_factor=256.0)
-    params = {k: jnp.asarray(v) for k, v in scene.items() if k != "sh_rest"}
-    img, stats, ms, a = run(params, cam, cfg1, 256, 256)
+    cfg1 = RenderConfig(dup_capacity_factor=256.0)
+    img, _, ms = forward(scenes.to_params(scene), cam, cfg1, 256, 256)
+    a = camera_args(cam)
     gparams = {"means": scene["means"],
-               "cov6": np.asarray(build_covariance(scene["scales"], scene["quats"])),
+               "cov6": np.asarray(build_covariance(scene["scales"],
+                                                   scene["quats"])),
                "opacities": scene["opacities"], "colors": scene["colors"]}
     gold, _ = golden.golden_render(gparams, a["view"], a["vp"], a["focal_x"],
                                    a["focal_y"], a["tan_fovx"], a["tan_fovy"],
                                    256, 256, cfg1)
     diff = float(np.abs(img - gold).max())
-    lines.append(f"## Config 1: single Gaussian ({src}), 256x256\n"
-                 f"- TPU vs CPU-golden max abs diff: **{diff:.2e}** "
-                 f"(reference's own CPU/GPU tolerance: 1e-2)\n"
-                 f"- frame time: {ms:.2f} ms\n")
-    print(f"config1: diff {diff:.2e}, {ms:.2f} ms", flush=True)
+    summary["single_splat_vs_golden_max_abs"] = diff
+    summary["single_splat_ms"] = ms
+    print(f"1: single splat vs golden max abs {diff:.3e} (limit 1e-2), "
+          f"{ms:.3f} ms/frame", flush=True)
+    assert diff < 1e-2, diff
 
-    # ---- config 2: 10k splats forward, 512x512 ---------------------------
-    scene = ply_io.make_synthetic_scene(10_000, seed=7, extent=2.5)
+    # ---- 2: 10k splats forward, 512x512 ---------------------------------
     cam = Camera(0.0, 0.0, -6.0, width=512, height=512)
-    cfg2 = RenderConfig(use_pallas=True, chunk=256, dup_capacity_factor=16.0)
-    params = {k: jnp.asarray(v) for k, v in scene.items() if k != "sh_rest"}
-    img, stats, ms, _ = run(params, cam, cfg2, 512, 512)
-    lines.append(f"## Config 2: synthetic 10k splats, forward, 512x512\n"
-                 f"- frame time: **{ms:.2f} ms** ({1000/ms:.1f} fps); "
-                 f"records: {int(stats['num_records'])}, overflow 0\n")
-    print(f"config2: {ms:.2f} ms/frame", flush=True)
+    cfg2 = RenderConfig(dup_capacity_factor=16.0)
+    _, stats, ms = forward(scenes.to_params(scenes.gate_scene()), cam, cfg2,
+                           512, 512)
+    assert int(stats["overflow"]) == 0
+    summary["splats10k_512_fwd_ms"] = ms
+    print(f"2: 10k splats 512x512 forward {ms:.3f} ms/frame, records "
+          f"{int(stats['num_records'])}", flush=True)
 
-    # ---- config 3: 100k splats fwd+bwd + finite-difference check ---------
+    # ---- 3: 100k splats fwd+bwd + finite-difference check ---------------
     scene = ply_io.make_synthetic_scene(100_000, seed=11, extent=3.0,
                                         log_scale_range=(-5.0, -3.0))
-    cam = Camera(0.0, 0.0, -8.0, width=512, height=512)
-    cfg3 = RenderConfig.for_resolution(512, 512, tile_px=32, use_pallas=True,
-                                       chunk=256, dup_capacity_factor=12.0)
-    params = {k: jnp.asarray(v) for k, v in scene.items() if k != "sh_rest"}
-    a = camera_args(cam)
+    params = scenes.to_params(scene)
+    c = scenes.camera_tuple(Camera(0.0, 0.0, -8.0, width=512, height=512))
+    cfg3 = scenes.config(512, 512, dup_capacity_factor=12.0)
     target = jnp.zeros((512, 512, 3))
 
     def loss_fn(p):
-        img, _ = render_arrays(p, jnp.asarray(a["view"]), jnp.asarray(a["vp"]),
-                               a["focal_x"], a["focal_y"], a["tan_fovx"],
-                               a["tan_fovy"], 512, 512, cfg3)
+        img, _ = render_arrays(p, *c, 512, 512, cfg3)
         return jnp.mean((img[..., :3] - target) ** 2)
 
     vgrad = jax.jit(jax.value_and_grad(loss_fn))
-    loss, grads = vgrad(params)
-    fence(grads)
-    t0 = time.time()
-    for _ in range(5):
-        loss, grads = vgrad(params)
-    fence(grads)
-    fb_ms = (time.time() - t0) / 5 * 1000
+    fb_ms, (_, grads) = timed_ms(lambda: vgrad(params), 5)
+    summary["splats100k_512_fwdbwd_ms"] = fb_ms
+    print(f"3: 100k splats 512x512 forward+backward {fb_ms:.3f} ms",
+          flush=True)
 
     loss_jit = jax.jit(loss_fn)
-    fd_rows = []
+    fd_rel = {}
     # Probe along the gradient direction with eps sized so the loss delta
     # (~1e-3) towers over float32 loss resolution (~1e-8); central
     # differences are exact for the quadratic colour terms and dominate the
@@ -135,40 +115,16 @@ def main():
     for key in ("colors", "means", "scales", "opacities", "quats"):
         g = np.asarray(grads[key], np.float64)
         gn = np.linalg.norm(g)
-        d = g / max(gn, 1e-30)
-        want = float(gn)
+        d = (g / max(gn, 1e-30)).astype(np.float32)
         eps = float(np.clip(5e-4 / max(gn, 1e-12), 1e-4, 50.0))
-        pp = dict(params)
-        pp[key] = params[key] + eps * d.astype(np.float32)
-        lp = float(loss_jit(pp))
-        pp[key] = params[key] - eps * d.astype(np.float32)
-        lm = float(loss_jit(pp))
+        lp = float(loss_jit(dict(params, **{key: params[key] + eps * d})))
+        lm = float(loss_jit(dict(params, **{key: params[key] - eps * d})))
         fd = (lp - lm) / (2 * eps)
-        rel = abs(fd - want) / max(abs(want), abs(fd), 1e-12)
-        fd_rows.append((key, want, fd, rel))
-        print(f"config3 fd {key}: ad={want:.3e} fd={fd:.3e} eps={eps:.2e} "
-              f"rel={rel:.3f}", flush=True)
-
-    rows = "\n".join(
-        f"| {k} | {adv:.4e} | {fdv:.4e} | {rel*100:.1f}% |"
-        for k, adv, fdv, rel in fd_rows)
-    worst = max(r[3] for r in fd_rows)
-    lines.append(
-        f"## Config 3: synthetic 100k splats, fwd+bwd, 512x512, 1 chip\n"
-        f"- fwd+bwd: **{fb_ms:.1f} ms** ({100_000/fb_ms*1000/1e6:.2f} "
-        f"Msplat/s through the full gradient pipeline)\n"
-        f"- directional finite-difference check (along the gradient direction per tensor):\n\n"
-        f"| param | autodiff | finite diff | rel err |\n|---|---|---|---|\n"
-        f"{rows}\n\n- worst relative error: {worst*100:.1f}%\n")
-
-    lines.append("## Configs 4/5\nRequire the bicycle capture (~6M splats) "
-                 "and >=2 hosts; this environment has one v5e chip and no "
-                 "scene data. The 1M-splat 1080p headline lives in bench.py "
-                 "(driver-recorded each round).\n")
-
-    with open("RESULTS.md", "w") as f:
-        f.write("\n".join(lines))
-    print("wrote RESULTS.md", flush=True)
+        fd_rel[key] = abs(fd - gn) / max(abs(gn), abs(fd), 1e-12)
+        print(f"3: finite difference {key}: autodiff {gn:.4e}, fd {fd:.4e}, "
+              f"eps {eps:.2e}, rel {fd_rel[key]:.3e}", flush=True)
+    summary["fd_rel_err"] = fd_rel
+    print(json.dumps(summary))
 
 
 if __name__ == "__main__":

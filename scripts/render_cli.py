@@ -61,9 +61,8 @@ def main():
     ap.add_argument("--out-dir", default="frames")
     ap.add_argument("--orbit-radius", type=float, default=5.0)
     ap.add_argument("--stats", action="store_true", help="print frame stats")
-    ap.add_argument("--platform", default="auto", choices=["auto", "cpu", "tpu"],
-                    help="force a JAX platform (some environments pin one "
-                         "at interpreter startup; env vars are too late)")
+    ap.add_argument("--platform", default="auto", choices=["auto", "cpu", "gpu"],
+                    help="force a JAX platform (default: JAX's own choice)")
     args = ap.parse_args()
 
     if args.platform != "auto":
@@ -73,9 +72,9 @@ def main():
 
     import numpy as np
 
-    from openglgaussiansplattingrenderer_tpu import Camera, RenderConfig, Splats
-    from openglgaussiansplattingrenderer_tpu.render import camera_args
-    from openglgaussiansplattingrenderer_tpu.viewer import offline
+    from openglgaussiansplattingrenderer_jax import Camera, RenderConfig, Splats
+    from openglgaussiansplattingrenderer_jax.render import camera_args
+    from openglgaussiansplattingrenderer_jax.viewer import offline
 
     kw = dict(use_pallas=not args.no_pallas,
               dup_capacity_factor=args.capacity_factor, chunk=args.chunk,
@@ -109,7 +108,7 @@ def main():
         return
 
     if args.depth:
-        from openglgaussiansplattingrenderer_tpu.io.png import save_png
+        from openglgaussiansplattingrenderer_jax.io.png import save_png
 
         depth, alpha = splats.render_depth_camera(cam)
         covered = alpha > 1e-3

@@ -99,7 +99,7 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=50)
     ap.add_argument("--platform", default="auto",
-                    choices=["auto", "cpu", "tpu"])
+                    choices=["auto", "cpu", "gpu"])
     args = ap.parse_args()
 
     if args.mesh2d and args.data_parallel:
@@ -136,25 +136,23 @@ def main():
 
     if args.bf16_grads:
         # must land before any train step is traced (the flag binds at
-        # trace time -- ops/pallas/records.py BWD_COT_PACK)
-        from openglgaussiansplattingrenderer_tpu.ops.pallas import (
-            records as _rk,
-        )
+        # trace time -- ops/records.py BWD_COT_PACK)
+        from openglgaussiansplattingrenderer_jax.ops import records as _rk
 
         _rk.BWD_COT_PACK = "bf16"
 
     import numpy as np
     import jax.numpy as jnp
 
-    from openglgaussiansplattingrenderer_tpu import RenderConfig
-    from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-    from openglgaussiansplattingrenderer_tpu.io.png import save_png
-    from openglgaussiansplattingrenderer_tpu.render import render_stats
-    from openglgaussiansplattingrenderer_tpu.train import (
+    from openglgaussiansplattingrenderer_jax import RenderConfig
+    from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+    from openglgaussiansplattingrenderer_jax.io.png import save_png
+    from openglgaussiansplattingrenderer_jax.render import render_stats
+    from openglgaussiansplattingrenderer_jax.train import (
         DensifyConfig, TrainConfig, fit_scene, fit_scene_adaptive, losses,
     )
-    from openglgaussiansplattingrenderer_tpu.train import densify as dn
-    from openglgaussiansplattingrenderer_tpu.viewer.offline import orbit_cameras
+    from openglgaussiansplattingrenderer_jax.train import densify as dn
+    from openglgaussiansplattingrenderer_jax.viewer.offline import orbit_cameras
 
     cfg = RenderConfig.for_resolution(
         args.width, args.height, tile_px=args.tile_px,
@@ -167,7 +165,7 @@ def main():
         # COLMAP workspace: <dir>/sparse/0 model + <dir>/images, or the
         # model directory itself. Init from the SfM point cloud (3DGS
         # sec. 4). Pass --width/--height matching the capture resolution.
-        from openglgaussiansplattingrenderer_tpu.io import colmap as colmap_io
+        from openglgaussiansplattingrenderer_jax.io import colmap as colmap_io
 
         sparse = args.scene
         if not any(os.path.exists(os.path.join(sparse, "cameras" + e))
@@ -193,7 +191,7 @@ def main():
               f"{len(start['means'])} SfM seed points", file=sys.stderr)
     elif args.scene.endswith(".json"):
         # posed-image dataset: fit from the images, random init cloud
-        from openglgaussiansplattingrenderer_tpu.io import dataset as ds_io
+        from openglgaussiansplattingrenderer_jax.io import dataset as ds_io
 
         cams, images = ds_io.load_transforms(args.scene)
         pairs = [(c, im) for c, im in zip(cams, images) if im is not None]
@@ -269,7 +267,7 @@ def main():
     if args.mesh2d:
         import jax
 
-        from openglgaussiansplattingrenderer_tpu.parallel import mesh2d
+        from openglgaussiansplattingrenderer_jax.parallel import mesh2d
 
         dv, ds = mesh2d_dims
         if dv * ds > len(jax.devices()):
@@ -293,7 +291,7 @@ def main():
     elif args.data_parallel:
         import jax
 
-        from openglgaussiansplattingrenderer_tpu.parallel import (
+        from openglgaussiansplattingrenderer_jax.parallel import (
             data_parallel as dp,
         )
 
@@ -344,7 +342,7 @@ def main():
           file=sys.stderr)
 
     if isinstance(cams[0], dict):
-        from openglgaussiansplattingrenderer_tpu.render import render_arrays
+        from openglgaussiansplattingrenderer_jax.render import render_arrays
 
         b = cams[0]
         img, _ = render_arrays(

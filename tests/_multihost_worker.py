@@ -21,7 +21,7 @@ def main() -> None:
 
     jax.config.update("jax_platforms", "cpu")
 
-    from openglgaussiansplattingrenderer_tpu.parallel import multihost
+    from openglgaussiansplattingrenderer_jax.parallel import multihost
 
     multihost.initialize(f"localhost:{port}", num_processes=2,
                          process_id=rank)
@@ -34,11 +34,11 @@ def main() -> None:
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from openglgaussiansplattingrenderer_tpu.camera import Camera
-    from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-    from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-    from openglgaussiansplattingrenderer_tpu.parallel import fast_sharded
-    from openglgaussiansplattingrenderer_tpu.render import camera_args
+    from openglgaussiansplattingrenderer_jax.camera import Camera
+    from openglgaussiansplattingrenderer_jax.config import RenderConfig
+    from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+    from openglgaussiansplattingrenderer_jax.parallel import fast_sharded
+    from openglgaussiansplattingrenderer_jax.render import camera_args
 
     cfg = RenderConfig(chunk=32, dup_capacity_factor=16.0)
     width = height = 64
@@ -75,8 +75,8 @@ def main() -> None:
     # single-process 2x2 mesh2d step on the same data.
     from jax.sharding import Mesh
 
-    from openglgaussiansplattingrenderer_tpu.parallel import mesh2d
-    from openglgaussiansplattingrenderer_tpu.train.trainer import (
+    from openglgaussiansplattingrenderer_jax.parallel import mesh2d
+    from openglgaussiansplattingrenderer_jax.train.trainer import (
         TrainConfig,
         raw_from_params,
     )
@@ -125,8 +125,8 @@ def main() -> None:
     # 2x2 mesh and compares the final loss + alive mask.
     from jax.experimental import multihost_utils
 
-    from openglgaussiansplattingrenderer_tpu.train import densify as dn
-    from openglgaussiansplattingrenderer_tpu.train.trainer import (
+    from openglgaussiansplattingrenderer_jax.train import densify as dn
+    from openglgaussiansplattingrenderer_jax.train.trainer import (
         load_checkpoint_full,
         save_checkpoint,
     )

@@ -10,12 +10,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from openglgaussiansplattingrenderer_tpu import golden
-from openglgaussiansplattingrenderer_tpu.camera import Camera
-from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-from openglgaussiansplattingrenderer_tpu.ops.transforms import build_covariance
-from openglgaussiansplattingrenderer_tpu.render import camera_args, render_arrays
+from openglgaussiansplattingrenderer_jax import golden
+from openglgaussiansplattingrenderer_jax.camera import Camera
+from openglgaussiansplattingrenderer_jax.config import RenderConfig
+from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+from openglgaussiansplattingrenderer_jax.ops.transforms import build_covariance
+from openglgaussiansplattingrenderer_jax.render import camera_args, render_arrays
 
 W = H = 128
 

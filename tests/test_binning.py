@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-from openglgaussiansplattingrenderer_tpu.ops import binning
+from openglgaussiansplattingrenderer_jax.config import RenderConfig
+from openglgaussiansplattingrenderer_jax.ops import binning
 
 
 def _loop_expand(counts, tile_min, tile_ext, depth, gx):

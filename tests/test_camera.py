@@ -4,7 +4,7 @@ import math
 
 import numpy as np
 
-from openglgaussiansplattingrenderer_tpu.camera import Camera, default_camera, perspective
+from openglgaussiansplattingrenderer_jax.camera import Camera, default_camera, perspective
 
 
 def _glm_rotate(angle_rad, axis):

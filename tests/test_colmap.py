@@ -13,10 +13,10 @@ import sys
 import numpy as np
 import pytest
 
-from openglgaussiansplattingrenderer_tpu.camera import Camera
-from openglgaussiansplattingrenderer_tpu.io import colmap as cm
-from openglgaussiansplattingrenderer_tpu.io import dataset as ds
-from openglgaussiansplattingrenderer_tpu.io.png import load_png, save_png
+from openglgaussiansplattingrenderer_jax.camera import Camera
+from openglgaussiansplattingrenderer_jax.io import colmap as cm
+from openglgaussiansplattingrenderer_jax.io import dataset as ds
+from openglgaussiansplattingrenderer_jax.io.png import load_png, save_png
 
 
 def _gl_c2w(pos, yaw_deg):
@@ -107,9 +107,9 @@ def test_render_through_colmap_pose(tmp_path):
 
     import jax.numpy as jnp
 
-    from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-    from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-    from openglgaussiansplattingrenderer_tpu.render import render_arrays
+    from openglgaussiansplattingrenderer_jax.config import RenderConfig
+    from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+    from openglgaussiansplattingrenderer_jax.render import render_arrays
 
     # GL camera at origin looking down -z (identity c2w); splat at z=-3
     c2w = np.eye(4)
@@ -177,9 +177,9 @@ def test_train_cli_colmap_end_to_end(tmp_path):
     as a COLMAP model, and fit from scratch via the CLI's COLMAP branch."""
     import jax.numpy as jnp
 
-    from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-    from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-    from openglgaussiansplattingrenderer_tpu.render import render_arrays
+    from openglgaussiansplattingrenderer_jax.config import RenderConfig
+    from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+    from openglgaussiansplattingrenderer_jax.render import render_arrays
 
     w = h = 64
     scene = ply_io.make_synthetic_scene(40, seed=6, extent=1.0)
@@ -301,9 +301,9 @@ def test_train_cli_distorted_colmap_end_to_end(tmp_path):
 
     import jax.numpy as jnp
 
-    from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-    from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-    from openglgaussiansplattingrenderer_tpu.render import render_arrays
+    from openglgaussiansplattingrenderer_jax.config import RenderConfig
+    from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+    from openglgaussiansplattingrenderer_jax.render import render_arrays
 
     w, h, fl = 64, 48, 70.0
     k = 0.35   # ~2.5 px displacement at the frame corners

@@ -8,7 +8,7 @@ early break exactly (draw.glsl:109-134).
 import numpy as np
 import jax.numpy as jnp
 
-from openglgaussiansplattingrenderer_tpu.config import RenderConfig
+from openglgaussiansplattingrenderer_jax.config import RenderConfig
 
 
 def _sequential_blend(alphas, colors, saturation=0.99):
@@ -66,7 +66,7 @@ def test_parallel_equals_sequential_saturating():
 
 def test_composite_empty_tiles():
     """No records -> background image with zero alpha."""
-    from openglgaussiansplattingrenderer_tpu.ops import compositing
+    from openglgaussiansplattingrenderer_jax.ops import compositing
 
     cfg = RenderConfig(background=(0.25, 0.5, 0.75), max_per_tile=64, chunk=32)
     c = 64

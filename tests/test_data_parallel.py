@@ -12,13 +12,13 @@ import jax.numpy as jnp
 import optax
 import pytest
 
-from openglgaussiansplattingrenderer_tpu.camera import Camera
-from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-from openglgaussiansplattingrenderer_tpu.parallel import data_parallel as dp
-from openglgaussiansplattingrenderer_tpu.render import render_arrays
-from openglgaussiansplattingrenderer_tpu.train import losses
-from openglgaussiansplattingrenderer_tpu.train.trainer import (
+from openglgaussiansplattingrenderer_jax.camera import Camera
+from openglgaussiansplattingrenderer_jax.config import RenderConfig
+from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+from openglgaussiansplattingrenderer_jax.parallel import data_parallel as dp
+from openglgaussiansplattingrenderer_jax.render import render_arrays
+from openglgaussiansplattingrenderer_jax.train import losses
+from openglgaussiansplattingrenderer_jax.train.trainer import (
     TrainConfig,
     camera_bundles,
     make_optimizer,
@@ -152,13 +152,13 @@ def test_dp_adc_parity_with_single_device():
     """--data-parallel + adaptive density control: a 2-device dp+ADC run
     must equal the 1-device run (batch=2 keeps every cross-view reduction
     a commutative 2-term sum)."""
-    from openglgaussiansplattingrenderer_tpu.camera import Camera
-    from openglgaussiansplattingrenderer_tpu.train import densify as dn
-    from openglgaussiansplattingrenderer_tpu.train.trainer import (
+    from openglgaussiansplattingrenderer_jax.camera import Camera
+    from openglgaussiansplattingrenderer_jax.train import densify as dn
+    from openglgaussiansplattingrenderer_jax.train.trainer import (
         TrainConfig as TCfg, camera_bundles,
     )
-    from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-    from openglgaussiansplattingrenderer_tpu.render import render_arrays
+    from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+    from openglgaussiansplattingrenderer_jax.render import render_arrays
 
     scene = ply_io.make_synthetic_scene(20, seed=11, extent=1.2)
     scene["opacities"] = np.clip(scene["opacities"], 0.5, 0.9)
@@ -194,13 +194,13 @@ def test_dp_adc_kill_and_resume_matches(tmp_path):
     """A dp+ADC run checkpointed at step 4 and resumed replays the
     uninterrupted 8-step run exactly (replicated state + densify state +
     RNG round-trip through the npz)."""
-    from openglgaussiansplattingrenderer_tpu.camera import Camera
-    from openglgaussiansplattingrenderer_tpu.train import densify as dn
-    from openglgaussiansplattingrenderer_tpu.train.trainer import (
+    from openglgaussiansplattingrenderer_jax.camera import Camera
+    from openglgaussiansplattingrenderer_jax.train import densify as dn
+    from openglgaussiansplattingrenderer_jax.train.trainer import (
         TrainConfig as TCfg, camera_bundles,
     )
-    from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-    from openglgaussiansplattingrenderer_tpu.render import render_arrays
+    from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+    from openglgaussiansplattingrenderer_jax.render import render_arrays
 
     scene = ply_io.make_synthetic_scene(20, seed=11, extent=1.2)
     scene["opacities"] = np.clip(scene["opacities"], 0.5, 0.9)

@@ -5,13 +5,13 @@ straight from loaded bundles."""
 import numpy as np
 import jax.numpy as jnp
 
-from openglgaussiansplattingrenderer_tpu.camera import Camera, perspective
-from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-from openglgaussiansplattingrenderer_tpu.io import dataset as ds
-from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-from openglgaussiansplattingrenderer_tpu.io.png import save_png
-from openglgaussiansplattingrenderer_tpu.render import render_arrays
-from openglgaussiansplattingrenderer_tpu.train import TrainConfig, fit_scene
+from openglgaussiansplattingrenderer_jax.camera import Camera, perspective
+from openglgaussiansplattingrenderer_jax.config import RenderConfig
+from openglgaussiansplattingrenderer_jax.io import dataset as ds
+from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+from openglgaussiansplattingrenderer_jax.io.png import save_png
+from openglgaussiansplattingrenderer_jax.render import render_arrays
+from openglgaussiansplattingrenderer_jax.train import TrainConfig, fit_scene
 
 CFG = RenderConfig(use_pallas=False, chunk=32, max_per_tile=256,
                    dup_capacity_factor=32.0)
@@ -48,7 +48,7 @@ def test_bundle_render_matches_camera_render():
     scene = ply_io.make_synthetic_scene(60, seed=3, extent=1.2)
     params = {k: jnp.asarray(v) for k, v in scene.items() if k != "sh_rest"}
     cam = Camera(0.0, 0.0, -4.0, width=W, height=H)
-    from openglgaussiansplattingrenderer_tpu.render import camera_args
+    from openglgaussiansplattingrenderer_jax.render import camera_args
     a = camera_args(cam)
     img_cam, _ = render_arrays(params, jnp.asarray(a["view"]),
                                jnp.asarray(a["vp"]), a["focal_x"],

@@ -11,14 +11,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from openglgaussiansplattingrenderer_tpu.camera import Camera
-from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-from openglgaussiansplattingrenderer_tpu.render import render_stats
-from openglgaussiansplattingrenderer_tpu.train import (
+from openglgaussiansplattingrenderer_jax.camera import Camera
+from openglgaussiansplattingrenderer_jax.config import RenderConfig
+from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+from openglgaussiansplattingrenderer_jax.render import render_stats
+from openglgaussiansplattingrenderer_jax.train import (
     TrainConfig, losses, trainer,
 )
-from openglgaussiansplattingrenderer_tpu.train import densify as dn
+from openglgaussiansplattingrenderer_jax.train import densify as dn
 
 CFG = RenderConfig(use_pallas=False, chunk=32, max_per_tile=256,
                    dup_capacity_factor=32.0)

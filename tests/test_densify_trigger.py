@@ -17,12 +17,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from openglgaussiansplattingrenderer_tpu.camera import Camera
-from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-from openglgaussiansplattingrenderer_tpu.ops import binning, compositing, projection
-from openglgaussiansplattingrenderer_tpu.ops.transforms import build_covariance
-from openglgaussiansplattingrenderer_tpu.render import camera_args
+from openglgaussiansplattingrenderer_jax.camera import Camera
+from openglgaussiansplattingrenderer_jax.config import RenderConfig
+from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+from openglgaussiansplattingrenderer_jax.ops import binning, compositing, projection
+from openglgaussiansplattingrenderer_jax.ops.transforms import build_covariance
+from openglgaussiansplattingrenderer_jax.render import camera_args
 
 W = H = 128
 CFG = RenderConfig.for_resolution(W, H, tile_px=32, use_pallas=False,
@@ -124,7 +124,7 @@ def test_train_step_screen_statistic_matches_autodiff_oracle():
     """The jitted train step's grad_stat="screen" metric must equal the
     directly-computed screen-space gradient (autodiff through the oracle
     with an explicit mean2d shift), up to the documented NDC scaling."""
-    from openglgaussiansplattingrenderer_tpu.train import trainer
+    from openglgaussiansplattingrenderer_jax.train import trainer
     _tr = trainer
 
     params0, args, target = _scene_and_target(n=150, seed=8)

@@ -11,11 +11,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from openglgaussiansplattingrenderer_tpu.camera import Camera
-from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-from openglgaussiansplattingrenderer_tpu.render import camera_args, render_depth
-from openglgaussiansplattingrenderer_tpu.splats import Splats
+from openglgaussiansplattingrenderer_jax.camera import Camera
+from openglgaussiansplattingrenderer_jax.config import RenderConfig
+from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+from openglgaussiansplattingrenderer_jax.render import camera_args, render_depth
+from openglgaussiansplattingrenderer_jax.splats import Splats
 
 W = H = 128
 
@@ -113,8 +113,8 @@ def test_depth_differentiable():
     assert float(jnp.abs(g["means"]).max()) > 0.0
 
 
-def test_depth_facade():
-    s = Splats("/root/reference/testSingleItem.ply", W, H,
+def test_depth_facade(single_item_ply):
+    s = Splats(single_item_ply, W, H,
                cfg=RenderConfig(use_pallas=False, dup_capacity_factor=256.0,
                                 max_per_tile=256, chunk=64))
     cam = Camera(0, 0, -3.0, width=W, height=H)

@@ -4,10 +4,10 @@ exact defaults (1024x512 target, main.cpp camera pose, gpuRender signature).
 
 import numpy as np
 
-from openglgaussiansplattingrenderer_tpu import Camera, RenderConfig, Splats
-from openglgaussiansplattingrenderer_tpu.camera import default_camera
-from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-from openglgaussiansplattingrenderer_tpu.render import camera_args
+from openglgaussiansplattingrenderer_jax import Camera, RenderConfig, Splats
+from openglgaussiansplattingrenderer_jax.camera import default_camera
+from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+from openglgaussiansplattingrenderer_jax.render import camera_args
 
 CFG = RenderConfig(use_pallas=False, chunk=32, max_per_tile=256,
                    dup_capacity_factor=24.0)
@@ -38,7 +38,7 @@ def test_gpu_render_signature(tmp_path):
 
 def test_default_resolution_vs_golden(tmp_path):
     """End-to-end at the reference's 1024x512 default with its hard-coded
-    camera pose (main.cpp:40-45), TPU pipeline vs numpy golden."""
+    camera pose (main.cpp:40-45), JAX pipeline vs numpy golden."""
     splats = Splats(_ply(tmp_path, n=40, seed=8), 1024, 512, cfg=CFG)
     cam = default_camera()
     # place the scene in front of that camera pose
@@ -59,15 +59,15 @@ def test_display_requires_render(tmp_path):
         splats.display("/tmp/nope.png")
 
 
-def test_facade_autotune_capacity():
+def test_facade_autotune_capacity(single_item_ply):
     """Splats.autotune_capacity pins cfg.capacity_records to the measured
     record count (+ margin, quantized) and the subsequent render fits with
     zero overflow."""
-    from openglgaussiansplattingrenderer_tpu import Camera, RenderConfig, Splats
+    from openglgaussiansplattingrenderer_jax import Camera, RenderConfig, Splats
 
     cfg = RenderConfig(use_pallas=False, dup_capacity_factor=256.0,
                        max_per_tile=256, chunk=64)
-    s = Splats("/root/reference/testSingleItem.ply", 128, 128, cfg=cfg)
+    s = Splats(single_item_ply, 128, 128, cfg=cfg)
     cam = Camera(0, 0, -3.0, width=128, height=128)
     s.autotune_capacity(cam)
     assert s.cfg.capacity_records is not None
@@ -78,31 +78,31 @@ def test_facade_autotune_capacity():
 
 
 def test_render_config_validates_engine_typos():
-    """record_sort/depth_key typos fail loudly at construction instead of
-    silently selecting the other engine (round-3 advisor finding)."""
+    """depth_key/sort_payload typos fail loudly at construction instead of
+    silently selecting another mode."""
     import pytest
 
-    from openglgaussiansplattingrenderer_tpu.config import RenderConfig
+    from openglgaussiansplattingrenderer_jax.config import RenderConfig
 
-    with pytest.raises(ValueError, match="record_sort"):
-        RenderConfig(record_sort="Radix")
+    with pytest.raises(ValueError, match="sort_payload"):
+        RenderConfig(sort_payload="Q16")
     with pytest.raises(ValueError, match="depth_key"):
         RenderConfig(depth_key="packed ")
-    RenderConfig(record_sort="radix", depth_key="packed")  # valid combos
+    RenderConfig(sort_payload="q16", depth_key="packed")  # valid combos
 
 
-def test_facade_inference_mode():
+def test_facade_inference_mode(single_item_ply):
     """Splats(..., inference=True) renders through the q16 packed-payload
     sort and stays within the documented error budget of the exact path."""
     import numpy as np
 
-    from openglgaussiansplattingrenderer_tpu.camera import Camera
-    from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-    from openglgaussiansplattingrenderer_tpu.splats import Splats
+    from openglgaussiansplattingrenderer_jax.camera import Camera
+    from openglgaussiansplattingrenderer_jax.config import RenderConfig
+    from openglgaussiansplattingrenderer_jax.splats import Splats
 
     cfg = RenderConfig(chunk=32, dup_capacity_factor=256.0)
-    s_f = Splats("/root/reference/testSingleItem.ply", 128, 128, cfg=cfg)
-    s_q = Splats("/root/reference/testSingleItem.ply", 128, 128, cfg=cfg,
+    s_f = Splats(single_item_ply, 128, 128, cfg=cfg)
+    s_q = Splats(single_item_ply, 128, 128, cfg=cfg,
                  inference=True)
     assert s_q.cfg.sort_payload == "q16"
     assert s_q.cfg.depth_key == "packed"

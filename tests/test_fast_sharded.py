@@ -12,12 +12,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from openglgaussiansplattingrenderer_tpu.camera import Camera
-from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-from openglgaussiansplattingrenderer_tpu.ops.fastpath import render_fast
-from openglgaussiansplattingrenderer_tpu.parallel import fast_sharded
-from openglgaussiansplattingrenderer_tpu.render import camera_args
+from openglgaussiansplattingrenderer_jax.camera import Camera
+from openglgaussiansplattingrenderer_jax.config import RenderConfig
+from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+from openglgaussiansplattingrenderer_jax.ops.fastpath import render_fast
+from openglgaussiansplattingrenderer_jax.parallel import fast_sharded
+from openglgaussiansplattingrenderer_jax.render import camera_args
 
 CFG = RenderConfig(chunk=32, dup_capacity_factor=16.0)
 W = H = 64
@@ -81,7 +81,7 @@ def test_fast_sharded_grads_match_single():
 def test_train_step_fast_sharded():
     import optax
 
-    from openglgaussiansplattingrenderer_tpu.train.trainer import (
+    from openglgaussiansplattingrenderer_jax.train.trainer import (
         params_from_raw,
         raw_from_params,
     )
@@ -122,8 +122,8 @@ def test_train_step_fast_sharded_trains_gs_objective():
 
     import optax
 
-    from openglgaussiansplattingrenderer_tpu.train import losses
-    from openglgaussiansplattingrenderer_tpu.train.trainer import (
+    from openglgaussiansplattingrenderer_jax.train import losses
+    from openglgaussiansplattingrenderer_jax.train.trainer import (
         raw_from_params,
     )
 
@@ -134,7 +134,7 @@ def test_train_step_fast_sharded_trains_gs_objective():
     raw = raw_from_params(params)
 
     def loss_single(raw):
-        from openglgaussiansplattingrenderer_tpu.train.trainer import (
+        from openglgaussiansplattingrenderer_jax.train.trainer import (
             params_from_raw,
         )
 
@@ -165,7 +165,7 @@ def test_train_step_fast_sharded_trains_gs_objective():
             args["tan_fovy"], W, H, CFG, mesh)
         return losses.gs_loss(img[..., :3], target, 0.2)
 
-    from openglgaussiansplattingrenderer_tpu.train.trainer import (
+    from openglgaussiansplattingrenderer_jax.train.trainer import (
         params_from_raw as params_from_raw_local,
     )
 

@@ -10,10 +10,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from openglgaussiansplattingrenderer_tpu.camera import Camera
-from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-from openglgaussiansplattingrenderer_tpu.render import camera_args, render_arrays
+from openglgaussiansplattingrenderer_jax.camera import Camera
+from openglgaussiansplattingrenderer_jax.config import RenderConfig
+from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+from openglgaussiansplattingrenderer_jax.render import camera_args, render_arrays
 
 CFG = RenderConfig(use_pallas=False, max_per_tile=512, chunk=64)
 W = H = 64

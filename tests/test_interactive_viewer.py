@@ -7,9 +7,9 @@ import urllib.request
 import numpy as np
 import pytest
 
-from openglgaussiansplattingrenderer_tpu import Camera, RenderConfig, Splats
-from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-from openglgaussiansplattingrenderer_tpu.viewer import interactive
+from openglgaussiansplattingrenderer_jax import Camera, RenderConfig, Splats
+from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+from openglgaussiansplattingrenderer_jax.viewer import interactive
 
 CFG = RenderConfig(use_pallas=False, chunk=32, max_per_tile=128,
                    dup_capacity_factor=24.0)
@@ -39,7 +39,7 @@ def _get(srv, path):
 def test_index_page(server):
     srv, _ = server
     body, headers = _get(srv, "/")
-    assert b"gsplat-tpu" in body and b"keydown" in body
+    assert b"gsplat-jax" in body and b"keydown" in body
 
 
 def test_frame_and_movement(server):

@@ -13,15 +13,15 @@ import jax.numpy as jnp
 import optax
 import pytest
 
-from openglgaussiansplattingrenderer_tpu.camera import Camera
-from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-from openglgaussiansplattingrenderer_tpu.ops.fastpath import render_fast
-from openglgaussiansplattingrenderer_tpu.parallel import mesh2d
-from openglgaussiansplattingrenderer_tpu.parallel.sharded import (
+from openglgaussiansplattingrenderer_jax.camera import Camera
+from openglgaussiansplattingrenderer_jax.config import RenderConfig
+from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+from openglgaussiansplattingrenderer_jax.ops.fastpath import render_fast
+from openglgaussiansplattingrenderer_jax.parallel import mesh2d
+from openglgaussiansplattingrenderer_jax.parallel.sharded import (
     pad_scene_for_mesh,
 )
-from openglgaussiansplattingrenderer_tpu.train.trainer import (
+from openglgaussiansplattingrenderer_jax.train.trainer import (
     TrainConfig,
     camera_bundles,
     make_optimizer,
@@ -63,7 +63,7 @@ def _reference_update(raw, targets, bundles, param_keys,
                       lambda_dssim=TC.lambda_dssim):
     """B sequential single-device fast-path grads -> mean -> one update,
     on the SAME 3DGS objective the 2-D mesh trains (gs_loss)."""
-    from openglgaussiansplattingrenderer_tpu.train import losses
+    from openglgaussiansplattingrenderer_jax.train import losses
 
     def loss_of(raw, target, b):
         img, _ = render_fast(params_from_raw(raw), *b, W, H, CFG)
@@ -88,7 +88,7 @@ def test_halo_padded_ssim_equals_full_image_ssim():
     windowing + centre-pixel mask) must reproduce losses.ssim on the full
     image exactly: sum of masked window values / (H-10)(W-10)C == the
     single-chip VALID-window mean."""
-    from openglgaussiansplattingrenderer_tpu.train import losses
+    from openglgaussiansplattingrenderer_jax.train import losses
 
     rng = np.random.default_rng(5)
     h = w = 32
@@ -171,7 +171,7 @@ def test_2d_gs_loss_nondivisible_resolution():
     targets = [rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
                for _ in range(2)]
 
-    from openglgaussiansplattingrenderer_tpu.train import losses
+    from openglgaussiansplattingrenderer_jax.train import losses
 
     def loss_of(raw, target, b):
         img, _ = render_fast(params_from_raw(raw), *b, w, h, cfg)
@@ -256,7 +256,7 @@ def test_2d_adc_parity_with_1x1_mesh():
     global program on sharded state (GSPMD), stats ride the per-view shift
     trick, and resharding is deterministic -- so only 2-term-commutative
     view sums separate the two runs."""
-    from openglgaussiansplattingrenderer_tpu.train import densify as dn
+    from openglgaussiansplattingrenderer_jax.train import densify as dn
 
     scene = ply_io.make_synthetic_scene(20, seed=11, extent=1.2)
     scene["opacities"] = np.clip(scene["opacities"], 0.5, 0.9)
@@ -294,7 +294,7 @@ def test_2d_adc_kill_and_resume_matches(tmp_path):
     """A mesh2d+ADC run checkpointed at step 4 (sharded state gathered to
     one npz) and resumed (re-placed P(splat)) replays the uninterrupted
     8-step run exactly."""
-    from openglgaussiansplattingrenderer_tpu.train import densify as dn
+    from openglgaussiansplattingrenderer_jax.train import densify as dn
 
     scene = ply_io.make_synthetic_scene(20, seed=11, extent=1.2)
     scene["opacities"] = np.clip(scene["opacities"], 0.5, 0.9)

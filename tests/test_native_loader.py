@@ -8,7 +8,7 @@ fixtures there, ``tests/plyParseTests.cpp:66-103``).
 import numpy as np
 import pytest
 
-from openglgaussiansplattingrenderer_tpu.io import native, ply as ply_io
+from openglgaussiansplattingrenderer_jax.io import native, ply as ply_io
 
 
 @pytest.fixture(scope="module")
@@ -35,13 +35,8 @@ def test_native_matches_numpy(tmp_path, rng, lib_available):
     np.testing.assert_allclose(got["sh_rest"], want["sh_rest"], atol=1e-6)
 
 
-def test_native_reference_fixture(lib_available):
-    import os
-
-    ref = "/root/reference/testSingleItem.ply"
-    if not os.path.exists(ref):
-        pytest.skip("reference PLY absent")
-    got = native.load_splats(ref)
+def test_native_reference_fixture(lib_available, single_item_ply):
+    got = native.load_splats(single_item_ply)
     assert got is not None
     want = ply_io.single_splat_scene()
     np.testing.assert_allclose(got["means"], want["means"], atol=1e-6)

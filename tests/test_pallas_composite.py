@@ -1,7 +1,8 @@
-"""Pallas fused compositor vs the jnp compositor (interpret mode on CPU).
+"""Pallas (Triton) fused compositor vs the jnp compositor.
 
-Forward images and full parameter gradients must match; the jnp path's
-autodiff is the gradient oracle for the Pallas kernels' analytic backward.
+On the CPU the kernels run in the interpreter; the ``gpu`` test runs them
+compiled. Forward images and full parameter gradients must match; the jnp
+path's autodiff is the gradient oracle for the kernels' analytic backward.
 """
 
 import dataclasses
@@ -11,10 +12,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from openglgaussiansplattingrenderer_tpu.camera import Camera
-from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-from openglgaussiansplattingrenderer_tpu.render import camera_args, render_arrays
+from openglgaussiansplattingrenderer_jax.camera import Camera
+from openglgaussiansplattingrenderer_jax.config import RenderConfig
+from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+from openglgaussiansplattingrenderer_jax.ops import fastpath
+from openglgaussiansplattingrenderer_jax.ops.compositing import composite_tiles_jnp
+from openglgaussiansplattingrenderer_jax.ops.pallas import composite as pc
+from openglgaussiansplattingrenderer_jax.render import camera_args, render_arrays
 
 BASE = RenderConfig(max_per_tile=1024, chunk=64, dup_capacity_factor=24.0)
 
@@ -109,84 +113,99 @@ def test_pallas_backward_saturated_scene():
             err_msg=f"gradient mismatch for {k}")
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize("form,fwd_rows,bwd_rows,subc,gate", [
-    ("sos", 8, 8, 1, True),
-    ("direct", 8, None, 1, True),
-    ("sos", None, 8, 1, True),
-    ("sep", 8, 8, 1, True),
-    ("sep", None, None, 1, True),
-    ("direct", None, None, 4, True),
-    ("sep", 8, 8, 4, True),
-    ("sos", None, None, 2, True),
-    ("sep", 8, 8, 4, False),
-    ("direct", None, None, 8, False),
+def _sorted(scene, cam, cfg, w, h):
+    args = camera_args(cam)
+    params = {k: jnp.asarray(v) for k, v in scene.items() if k != "sh_rest"}
+    return fastpath.sort_records(
+        params, jnp.asarray(args["view"]), jnp.asarray(args["vp"]),
+        args["focal_x"], args["focal_y"], args["tan_fovx"], args["tan_fovy"],
+        w, h, cfg)
+
+
+@pytest.mark.parametrize("chunk,block_pixels,w,h,gx,gy", [
+    (16, 256, 64, 64, 16, 16),   # 4x4-px tiles: one 16-pixel block
+    (32, 64, 96, 96, 4, 4),      # 24x24 tiles: 576 px padded to 1024
+    (8, 128, 100, 60, 5, 3),     # 20x20 tiles, uneven image
 ])
-def test_pallas_knob_matrix_matches_jnp(monkeypatch, form, fwd_rows,
-                                        bwd_rows, subc, gate):
-    """The sweepable kernel knobs (POWER_FORM, FWD/BWD_EXIT_ROWS,
-    SUB_CHUNKS, SUB_GATE) must all reproduce the oracle's forward AND
-    backward regardless of which combination the hardware sweep eventually
-    picks as default."""
-    from openglgaussiansplattingrenderer_tpu.ops.pallas import composite as pc
-
-    monkeypatch.setattr(pc, "POWER_FORM", form)
-    monkeypatch.setattr(pc, "FWD_EXIT_ROWS", fwd_rows)
-    monkeypatch.setattr(pc, "BWD_EXIT_ROWS", bwd_rows)
-    monkeypatch.setattr(pc, "SUB_CHUNKS", subc)
-    monkeypatch.setattr(pc, "SUB_GATE", gate)
-    pc._make_composite_op.cache_clear()
-
-    w = h = 64
-    scene = ply_io.make_synthetic_scene(80, seed=33, extent=1.5)
+def test_kernel_shapes_match_jnp(chunk, block_pixels, w, h, gx, gy):
+    """The wrapper's pixel padding, pixel blocks and record chunks: forward
+    tiles and record cotangents equal the jnp compositor's on the same
+    sorted records."""
+    scene = ply_io.make_synthetic_scene(120, seed=11, extent=1.5)
     scene["opacities"] = np.clip(scene["opacities"], 0.2, 0.9)
     cam = Camera(0.0, 0.0, -5.0, width=w, height=h)
-    target = jnp.full((h, w, 3), 0.3)
-    cfg_j = dataclasses.replace(BASE, use_pallas=False)
-    cfg_p = dataclasses.replace(BASE, use_pallas=True)
-    img_j, _ = _run(scene, cam, cfg_j, w, h)
-    img_p, _ = _run(scene, cam, cfg_p, w, h)
-    np.testing.assert_allclose(img_p, img_j, atol=5e-5)
-    loss_j, g_j = _run(scene, cam, cfg_j, w, h, grad=True, target=target)
-    loss_p, g_p = _run(scene, cam, cfg_p, w, h, grad=True, target=target)
-    assert np.isclose(loss_p, loss_j, rtol=1e-5)
-    for k in g_j:
-        scale = np.abs(g_j[k]).max() + 1e-12
-        assert np.abs(g_p[k] - g_j[k]).max() / scale < 5e-3, k
-    pc._make_composite_op.cache_clear()
+    cfg = RenderConfig(grid_x=gx, grid_y=gy, chunk=chunk, max_per_tile=2048,
+                       dup_capacity_factor=64.0)
+    sf2, bounds, info = _sorted(scene, cam, cfg, w, h)
+    assert int(info["total_all"]) <= cfg.capacity(120)
+    tiles = jnp.arange(cfg.num_tiles, dtype=jnp.int32)
+    ct = jax.random.normal(jax.random.PRNGKey(1),
+                           composite_tiles_jnp(sf2, bounds, w, h, cfg).shape)
+
+    def tri(s):
+        return pc.composite_tiles(s, bounds, tiles, w, h, cfg, chunk=chunk,
+                                  block_pixels=block_pixels)
+
+    def ref(s):
+        return composite_tiles_jnp(s, bounds, w, h, cfg)
+
+    np.testing.assert_allclose(np.asarray(tri(sf2)), np.asarray(ref(sf2)),
+                               atol=1e-3)
+    g_t = jax.grad(lambda s: jnp.vdot(tri(s), ct))(sf2)
+    g_j = jax.grad(lambda s: jnp.vdot(ref(s), ct))(sf2)
+    for k, (a, b) in enumerate(zip(g_t, g_j)):
+        scale = np.abs(np.asarray(b)).max() + 1e-12
+        assert np.abs(np.asarray(a) - np.asarray(b)).max() / scale < 1e-4, k
 
 
-def test_sep_power_form_bit_identical_to_sos(monkeypatch):
-    """"sep" only amortizes subexpressions constant along a pixel axis;
-    in exact arithmetic the operation order is unchanged, so in interpret
-    mode (how this suite runs) images and gradients must equal the "sos"
-    form EXACTLY. On hardware, FMA contraction may differ at the ulp level
-    between the two expression shapes -- covered there by the knob-matrix
-    oracle tolerances, not by this exact-equality check."""
-    from openglgaussiansplattingrenderer_tpu.ops.pallas import composite as pc
-
+def test_kernel_chunk_is_its_own():
+    """cfg.chunk sets the jnp compositor's scan step only: the kernel streams
+    records in chunks of pc.CHUNK whatever it says."""
     w = h = 64
-    scene = ply_io.make_synthetic_scene(80, seed=33, extent=1.5)
-    scene["opacities"] = np.clip(scene["opacities"], 0.2, 0.9)
+    scene = ply_io.make_synthetic_scene(80, seed=5, extent=1.5)
     cam = Camera(0.0, 0.0, -5.0, width=w, height=h)
-    target = jnp.full((h, w, 3), 0.3)
-    cfg_p = dataclasses.replace(BASE, use_pallas=True)
+    cfg = RenderConfig(grid_x=4, grid_y=4, chunk=8, dup_capacity_factor=32.0)
+    sf2, bounds, _ = _sorted(scene, cam, cfg, w, h)
+    tiles = jnp.arange(cfg.num_tiles, dtype=jnp.int32)
+    got = [np.asarray(pc.composite_tiles(sf2, bounds, tiles, w, h,
+                                         dataclasses.replace(cfg, chunk=c)))
+           for c in (8, 256)]
+    np.testing.assert_array_equal(got[0], got[1])
+    np.testing.assert_array_equal(
+        got[0], np.asarray(pc.composite_tiles(sf2, bounds, tiles, w, h, cfg,
+                                              chunk=pc.CHUNK)))
+    assert RenderConfig().chunk == 256 and pc.CHUNK == 32
 
-    outs = {}
-    for form in ("sos", "sep"):
-        monkeypatch.setattr(pc, "POWER_FORM", form)
-        pc._make_composite_op.cache_clear()
-        img, _ = _run(scene, cam, cfg_p, w, h)
-        loss, g = _run(scene, cam, cfg_p, w, h, grad=True, target=target)
-        outs[form] = (np.asarray(img), float(loss),
-                      {k: np.asarray(v) for k, v in g.items()})
-    pc._make_composite_op.cache_clear()
 
-    np.testing.assert_array_equal(outs["sep"][0], outs["sos"][0])
-    assert outs["sep"][1] == outs["sos"][1]
-    for k in outs["sos"][2]:
-        np.testing.assert_array_equal(outs["sep"][2][k], outs["sos"][2][k],
-                                      err_msg=k)
+def test_pixel_blocks_and_chunk_rule():
+    assert [pc.next_pow2(x) for x in (1, 2, 3, 16, 17, 576)] == \
+        [1, 2, 4, 16, 32, 1024]
+    assert pc.pixel_blocks(32, 32, 256) == (1024, 256, 4)
+    assert pc.pixel_blocks(4, 4, 256) == (16, 16, 1)
+    assert pc.pixel_blocks(24, 24, 200) == (1024, 256, 4)
+    for bad in (0, 12, 48):
+        with pytest.raises(ValueError, match="power-of-two"):
+            pc.check_chunk(bad)
+    pc.check_chunk(1)
+    pc.check_chunk(64)
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_jnp_on_gpu(gpu):
+    """The compiled Triton kernels (not the interpreter) against the jnp
+    compositor, forward and record cotangents."""
+    w = h = 128
+    scene = ply_io.make_synthetic_scene(2000, seed=2, extent=2.0)
+    cam = Camera(0.0, 0.0, -6.0, width=w, height=h)
+    cfg = RenderConfig.for_resolution(w, h, tile_px=32, max_per_tile=4096,
+                                      dup_capacity_factor=24.0)
+    sf2, bounds, _ = jax.jit(lambda: _sorted(scene, cam, cfg, w, h))()
+    tiles = jnp.arange(cfg.num_tiles, dtype=jnp.int32)
+    with jax.default_matmul_precision("highest"):
+        ref = composite_tiles_jnp(sf2, bounds, w, h, cfg)
+    got = pc.composite_tiles(sf2, bounds, tiles, w, h, cfg)
+    # colour-scale units: 0.255 is 1e-3 of the image range
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=0.255)
 
 
 def test_no_hoist_depth_sort_matches_hoisted():

@@ -5,16 +5,11 @@ reference scene ``testSingleItem.ply`` (written by the reference's
 ``tests/plyFileGenerator.py``) is the analytic fixture.
 """
 
-import os
-
 import numpy as np
 import pytest
 
-from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-from openglgaussiansplattingrenderer_tpu.ops.transforms import SH_C0
-
-REF_PLY = "/root/reference/testSingleItem.ply"
-
+from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+from openglgaussiansplattingrenderer_jax.ops.transforms import SH_C0
 
 def test_roundtrip(tmp_path, rng):
     n = 37
@@ -39,11 +34,10 @@ def test_roundtrip(tmp_path, rng):
                                atol=1e-5)
 
 
-@pytest.mark.skipif(not os.path.exists(REF_PLY), reason="reference PLY not present")
-def test_reference_single_splat_fixture():
-    """Parse the reference's checked-in single-splat scene and check the
-    analytic values from ``tests/plyFileGenerator.py:251-265``."""
-    act = ply_io.activate(ply_io.load_ply(REF_PLY))
+def test_reference_single_splat_fixture(single_item_ply):
+    """Parse the single-splat scene and check the analytic values from the
+    reference's ``tests/plyFileGenerator.py:251-265``."""
+    act = ply_io.activate(ply_io.load_ply(single_item_ply))
     want = ply_io.single_splat_scene()
     np.testing.assert_allclose(act["means"], want["means"], atol=1e-6)
     np.testing.assert_allclose(act["scales"], want["scales"], rtol=1e-5)

@@ -1,8 +1,8 @@
 """The q16 inference precision mode: 9 record fields packed to 5 u32 sort
-lanes (ops/pallas/records.sort_records_q16, cfg.sort_payload="q16").
+lanes (ops/records.sort_records_q16, cfg.sort_payload="q16").
 
 Gate: the reference's own CPU-vs-GPU assertions run at an absolute
-tolerance of 0.01 (/root/reference/src/Splats.cpp:783-843) -- it never
+tolerance of 0.01 (reference src/Splats.cpp:783-843) -- it never
 demanded bit-exactness of its two pipelines. The q16 image must stay well
 inside that bound against the exact f32 path; the f32 path and the bench
 oracle gate stay untouched.
@@ -15,12 +15,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from openglgaussiansplattingrenderer_tpu.camera import Camera
-from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-from openglgaussiansplattingrenderer_tpu.ops.fastpath import render_fast
-from openglgaussiansplattingrenderer_tpu.ops.pallas import records as rk
-from openglgaussiansplattingrenderer_tpu.render import camera_args
+from openglgaussiansplattingrenderer_jax.camera import Camera
+from openglgaussiansplattingrenderer_jax.config import RenderConfig
+from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+from openglgaussiansplattingrenderer_jax.ops.fastpath import render_fast
+from openglgaussiansplattingrenderer_jax.ops import records as rk
+from openglgaussiansplattingrenderer_jax.render import camera_args
 
 W = H = 64
 CFG_F32 = RenderConfig(chunk=32, dup_capacity_factor=8.0,
@@ -104,7 +104,8 @@ def test_q16_requires_packed_single_key():
         render_fast(params, *args,
                     dataclasses.replace(CFG_Q16, depth_key="pair"))
     with pytest.raises(ValueError, match="q16"):
-        RenderConfig(sort_payload="q16", record_sort="radix")
+        render_fast(params, *args,
+                    dataclasses.replace(CFG_Q16, hoist_depth_sort=True))
     with pytest.raises(ValueError, match="sort_payload"):
         RenderConfig(sort_payload="bf16")
 

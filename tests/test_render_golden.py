@@ -1,6 +1,6 @@
 """End-to-end render vs the golden numpy pipeline (oracle pattern #1).
 
-The TPU pipeline (vectorized jnp, parallel masked compositing, pair-key sort)
+The JAX pipeline (vectorized jnp, parallel masked compositing, pair-key sort)
 must agree with the golden pipeline (literal GLSL math, Python-loop
 duplication, sequential blending, packed-float-key sort) to float tolerance --
 the same CPU-vs-GPU buffer assertion strategy as ``Splats.cpp:783-843``
@@ -11,12 +11,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from openglgaussiansplattingrenderer_tpu import golden
-from openglgaussiansplattingrenderer_tpu.camera import Camera
-from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-from openglgaussiansplattingrenderer_tpu.render import camera_args, render_arrays
-from openglgaussiansplattingrenderer_tpu.ops.transforms import build_covariance
+from openglgaussiansplattingrenderer_jax import golden
+from openglgaussiansplattingrenderer_jax.camera import Camera
+from openglgaussiansplattingrenderer_jax.config import RenderConfig
+from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+from openglgaussiansplattingrenderer_jax.render import camera_args, render_arrays
+from openglgaussiansplattingrenderer_jax.ops.transforms import build_covariance
 
 
 def _render_both(scene, cam, cfg, width, height):
@@ -28,7 +28,7 @@ def _render_both(scene, cam, cfg, width, height):
         "opacities": jnp.asarray(scene["opacities"]),
         "colors": jnp.asarray(scene["colors"]),
     }
-    img_tpu, stats = render_arrays(
+    img_jax, stats = render_arrays(
         params, jnp.asarray(args["view"]), jnp.asarray(args["vp"]),
         args["focal_x"], args["focal_y"], args["tan_fovx"], args["tan_fovy"],
         width, height, cfg,
@@ -42,7 +42,7 @@ def _render_both(scene, cam, cfg, width, height):
         gparams, args["view"], args["vp"], args["focal_x"], args["focal_y"],
         args["tan_fovx"], args["tan_fovy"], width, height, cfg,
     )
-    return np.asarray(img_tpu), stats, img_gold, dbg
+    return np.asarray(img_jax), stats, img_gold, dbg
 
 
 @pytest.fixture(scope="module")
@@ -53,7 +53,7 @@ def cfg():
 
 
 def test_single_splat_256(cfg):
-    """Milestone A scene: testSingleItem.ply at 256x256 (BASELINE.md config 1).
+    """Milestone A scene: testSingleItem.ply at 256x256 (the reference fixture).
 
     The splat's 222px radius overlaps all 256 tiles, so capacity must cover
     the full grid (the reference would cap duplicates at numSplats=1 here,
@@ -62,11 +62,11 @@ def test_single_splat_256(cfg):
     cam = Camera(0.0, 0.0, -3.0, width=256, height=256)
     cfg1 = RenderConfig(use_pallas=False, max_per_tile=256, chunk=64,
                         dup_capacity_factor=256.0)
-    img_tpu, stats, img_gold, _ = _render_both(scene, cam, cfg1, 256, 256)
-    assert img_tpu.shape == (256, 256, 4)
+    img_jax, stats, img_gold, _ = _render_both(scene, cam, cfg1, 256, 256)
+    assert img_jax.shape == (256, 256, 4)
     # the splat must actually be visible
     assert img_gold[..., 3].max() > 0.5
-    np.testing.assert_allclose(img_tpu, img_gold, atol=1e-3)
+    np.testing.assert_allclose(img_jax, img_gold, atol=1e-3)
     # white splat: channels equal, brightest at the projected centre (128,128)
     ys, xs = np.nonzero(img_gold[..., 3] > 0.1)
     np.testing.assert_allclose(img_gold[ys, xs, 0], img_gold[ys, xs, 1], atol=1e-6)
@@ -81,8 +81,8 @@ def test_red_splat_anisotropy(cfg):
     cam = Camera(0.0, 0.0, -3.0, width=256, height=256)
     cfg1 = RenderConfig(use_pallas=False, max_per_tile=256, chunk=64,
                         dup_capacity_factor=256.0)
-    img_tpu, stats, img_gold, _ = _render_both(scene, cam, cfg1, 256, 256)
-    np.testing.assert_allclose(img_tpu, img_gold, atol=1e-3)
+    img_jax, stats, img_gold, _ = _render_both(scene, cam, cfg1, 256, 256)
+    np.testing.assert_allclose(img_jax, img_gold, atol=1e-3)
     # red channel vs green: exactly the DC activation ratio
     # (0.5 + SH_C0)/(0.5) since f_dc = (1, 0, 0) and the 0.5 offset is grey.
     ys, xs = np.nonzero(img_gold[..., 3] > 0.1)
@@ -93,10 +93,10 @@ def test_red_splat_anisotropy(cfg):
 def test_random_scene_128(cfg, rng):
     scene = ply_io.make_synthetic_scene(300, seed=7, extent=2.0)
     cam = Camera(0.0, 0.0, -6.0, width=128, height=128)
-    img_tpu, stats, img_gold, dbg = _render_both(scene, cam, cfg, 128, 128)
+    img_jax, stats, img_gold, dbg = _render_both(scene, cam, cfg, 128, 128)
     assert int(stats["overflow"]) == 0
     assert int(stats["dropped_by_cap"]) == 0
-    np.testing.assert_allclose(img_tpu, img_gold, atol=2e-3)
+    np.testing.assert_allclose(img_jax, img_gold, atol=2e-3)
 
 
 def test_nontrivial_camera(cfg):
@@ -105,8 +105,8 @@ def test_nontrivial_camera(cfg):
     cam.rotate_down(10.0)
     cam.rotate_right(15.0)
     cam.update()
-    img_tpu, stats, img_gold, _ = _render_both(scene, cam, cfg, 128, 64)
-    np.testing.assert_allclose(img_tpu, img_gold, atol=2e-3)
+    img_jax, stats, img_gold, _ = _render_both(scene, cam, cfg, 128, 64)
+    np.testing.assert_allclose(img_jax, img_gold, atol=2e-3)
 
 
 def test_stats_consistency(cfg):
@@ -120,7 +120,7 @@ def test_stats_consistency(cfg):
     cfg = dataclasses.replace(cfg, tight_rect=False)
     scene = ply_io.make_synthetic_scene(500, seed=13, extent=3.0)
     cam = Camera(0.0, 0.0, -8.0, width=128, height=128)
-    img_tpu, stats, img_gold, dbg = _render_both(scene, cam, cfg, 128, 128)
+    img_jax, stats, img_gold, dbg = _render_both(scene, cam, cfg, 128, 128)
     n_records_gold = len(dbg["sorted_sids"])
     assert int(stats["num_records"]) == n_records_gold
     assert int(stats["num_visible"]) == int(np.sum(dbg["valid"]))

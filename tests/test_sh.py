@@ -7,11 +7,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from openglgaussiansplattingrenderer_tpu.camera import Camera
-from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-from openglgaussiansplattingrenderer_tpu.ops import transforms
-from openglgaussiansplattingrenderer_tpu.render import camera_args, render_arrays
+from openglgaussiansplattingrenderer_jax.camera import Camera
+from openglgaussiansplattingrenderer_jax.config import RenderConfig
+from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+from openglgaussiansplattingrenderer_jax.ops import transforms
+from openglgaussiansplattingrenderer_jax.render import camera_args, render_arrays
 
 BASE = RenderConfig(use_pallas=False, chunk=32, max_per_tile=256,
                     dup_capacity_factor=32.0)

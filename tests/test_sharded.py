@@ -11,11 +11,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from openglgaussiansplattingrenderer_tpu.camera import Camera
-from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-from openglgaussiansplattingrenderer_tpu.parallel import sharded
-from openglgaussiansplattingrenderer_tpu.render import camera_args, render_arrays
+from openglgaussiansplattingrenderer_jax.camera import Camera
+from openglgaussiansplattingrenderer_jax.config import RenderConfig
+from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+from openglgaussiansplattingrenderer_jax.parallel import sharded
+from openglgaussiansplattingrenderer_jax.render import camera_args, render_arrays
 
 CFG = RenderConfig(use_pallas=False, chunk=32, max_per_tile=512,
                    dup_capacity_factor=16.0)
@@ -74,8 +74,6 @@ def test_sharded_grads_match_single():
 
 
 def test_dryrun_multichip():
-    import sys
-    sys.path.insert(0, "/root/repo")
     import __graft_entry__
 
     __graft_entry__.dryrun_multichip(8)

@@ -11,8 +11,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from openglgaussiansplattingrenderer_tpu.ops import sorting
-from openglgaussiansplattingrenderer_tpu.ops.pallas import records as rk
+from openglgaussiansplattingrenderer_jax.ops import sorting
+from openglgaussiansplattingrenderer_jax.ops import records as rk
 
 N_REFERENCE = 32 * 16 * 10000 - 7  # sortTests.cpp:181
 

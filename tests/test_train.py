@@ -3,11 +3,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from openglgaussiansplattingrenderer_tpu.camera import Camera
-from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-from openglgaussiansplattingrenderer_tpu.render import render_stats
-from openglgaussiansplattingrenderer_tpu.train import (
+from openglgaussiansplattingrenderer_jax.camera import Camera
+from openglgaussiansplattingrenderer_jax.config import RenderConfig
+from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+from openglgaussiansplattingrenderer_jax.render import render_stats
+from openglgaussiansplattingrenderer_jax.train import (
     TrainConfig, fit_scene, losses, trainer,
 )
 
@@ -96,7 +96,7 @@ def test_fit_trains_sh_coefficients():
             Camera(1.5, 0.0, -3.6, width=w, height=h)]
     cams[1].set_rotation(0.0, -20.0, 0.0)
     targets = []
-    from openglgaussiansplattingrenderer_tpu.render import render_stats as rs
+    from openglgaussiansplattingrenderer_jax.render import render_stats as rs
     for cam in cams:
         img, _ = rs(full, cam, cfg)
         targets.append(np.asarray(img[..., :3]))
@@ -121,7 +121,7 @@ def test_position_lr_decay_schedule():
     (colors) stays put."""
     import jax
     import optax
-    from openglgaussiansplattingrenderer_tpu.train.trainer import (
+    from openglgaussiansplattingrenderer_jax.train.trainer import (
         TrainConfig, make_optimizer,
     )
 

@@ -6,7 +6,7 @@ import os
 import subprocess
 import sys
 
-from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
+from openglgaussiansplattingrenderer_jax.io import ply as ply_io
 
 import numpy as np
 import pytest

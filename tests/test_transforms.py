@@ -6,7 +6,7 @@ mirroring the reference's ``tests/CovarianceToAnglesAndScales.py`` check.
 
 import numpy as np
 
-from openglgaussiansplattingrenderer_tpu.ops import transforms
+from openglgaussiansplattingrenderer_jax.ops import transforms
 
 
 def _random_quats(rng, n):

@@ -6,10 +6,10 @@ import sys
 
 import numpy as np
 
-from openglgaussiansplattingrenderer_tpu.config import RenderConfig
-from openglgaussiansplattingrenderer_tpu.io import ply as ply_io
-from openglgaussiansplattingrenderer_tpu.splats import SplatScene
-from openglgaussiansplattingrenderer_tpu.viewer import offline
+from openglgaussiansplattingrenderer_jax.config import RenderConfig
+from openglgaussiansplattingrenderer_jax.io import ply as ply_io
+from openglgaussiansplattingrenderer_jax.splats import SplatScene
+from openglgaussiansplattingrenderer_jax.viewer import offline
 
 CFG = RenderConfig(use_pallas=False, chunk=32, max_per_tile=128,
                    dup_capacity_factor=32.0)
